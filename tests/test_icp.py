@@ -328,7 +328,7 @@ def test_patched_photometric_samples_match_flat():
 
 def test_track_combined_with_patched_association():
     """Full combined-mode coarse-to-fine track with assoc_patch forced on
-    (the TPU path: photometric samples ride the one-hot patch gather)
+    (photometric samples ride the one-hot patch gather)
     recovers a perturbed pose."""
     cfg = dataclasses.replace(CFG, assoc_patch="on")
     true_pose = look_at((1.4, 0.3, 0.5), (0.0, 0.0, 0.0))
@@ -419,7 +419,7 @@ def _track_self(depth, color, pose, mode="depth"):
 
 
 def test_degeneracy_detector_fires_on_dominant_plane():
-    """The demonstrated silent failure (PERFORMANCE.md desk analysis):
+    """The demonstrated silent failure (the desk-scene analysis):
     point-to-plane ICP on a plane-dominated view has a 3-DoF null space
     and SLIDES while error/inliers look perfect.  The observability
     score (smallest normalized eigenvalue of the 6x6, TrackResult

@@ -29,7 +29,7 @@ CFG = dataclasses.replace(
     # Production-like coarse budget.  The old (4,5,8) setting put the
     # 12 deg/frame five-class canary EXACTLY on a convergence-basin
     # knife edge: +-15 um association perturbations flipped it, with
-    # OPPOSITE outcomes on CPU vs TPU (round-3 study, PERFORMANCE.md),
+    # OPPOSITE outcomes on two backends (round-3 study),
     # and even a deliberately broken 0.24 mm vertex quantization passed
     # once the coarse level got its production 16 iterations -- the
     # canary's apparent sensitivity was basin-edge flakiness, not
@@ -377,7 +377,7 @@ def test_degeneracy_hold_on_dominant_plane_scene():
     """Closed-loop depth-only tracking on a floor-only scene: the view
     is one dominant plane, so the pose is free to slide in-plane while
     every magnitude health metric stays perfect (the desk-scene failure
-    demonstrated in PERFORMANCE.md).  The pipeline must (a) flag every
+    demonstrated on the desk scene).  The pipeline must (a) flag every
     such frame in track_degen_frames, (b) HOLD fusion (slid geometry
     must not compound into the map), and (c) NOT count it as a track
     failure -- the track didn't fail, the scene under-constrains it."""
@@ -416,7 +416,7 @@ def test_auto_photo_silent_on_well_conditioned_scene():
     scene's measured geo band is 0.18-0.31 (aggressive 18 cm/frame
     motion at 200x150), so the threshold is pinned below it; the
     production default (0.25) is calibrated against the 640x480
-    replays (PERFORMANCE.md round-5)."""
+    replays (round 5)."""
     n = 10
     poses = orbit_poses(n, (0.0, 0.0, 0.0), radius=1.6, height=0.35,
                         span=0.55 * np.pi)
@@ -445,7 +445,7 @@ def test_auto_photo_arms_on_weak_conditioning_and_tracks():
     escalation must ARM (photo_cnt > 0), execute the combined branch
     (model renders luma), and keep the closed loop converged -- the
     small-scale analogue of the desk-slide fix (the 640x480 desk replay
-    itself is measured on TPU: bench.py modes block / PERFORMANCE.md)."""
+    itself is measured by bench.py's modes block)."""
     n = 10
     poses = orbit_poses(n, (0.0, 0.0, 0.0), radius=1.6, height=0.35,
                         span=0.55 * np.pi)
@@ -475,8 +475,8 @@ def test_auto_photo_rescues_dominant_plane_scene():
     admits -- i.e. matches what ALWAYS-combined tracking achieves.  (At
     this 200x150 scale the ~1-2 m-wavelength procedural texture cannot
     fully anchor 18 cm/frame in-plane motion even in combined mode; the
-    production-scale desk-band rescue is measured on TPU at 640x480 --
-    PERFORMANCE.md round-5 / bench modes block.)"""
+    production-scale desk-band rescue is measured at 640x480 by
+    bench.py's modes block.)"""
     n = 8
     poses = orbit_poses(n, (0.0, 0.0, 0.0), radius=1.6, height=0.35,
                         span=0.12 * np.pi)

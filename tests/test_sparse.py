@@ -5,6 +5,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from vulcan_tpu.config import TINY
 from vulcan_tpu.core.camera import PinholeCamera
@@ -284,25 +285,60 @@ def test_splat_silhouette_bias():
     assert np.median(err) < 2 * cfg.voxel_size, np.median(err)
 
 
-def test_fill_smooth_pallas_interpret_matches_xla():
-    """The splat hole-fill/smooth Pallas kernel body equals the XLA
-    fallback (interpret mode; VERDICT round-2 'Pallas kernels are
-    invisible to the test suite')."""
-    from vulcan_tpu.ops.splat import _fill_smooth_math, _fill_smooth_pallas
+def test_fill_and_smooth_matches_numpy_reference():
+    """The splat hole-fill/smooth pass against the NumPy loop reference
+    that chip_smoke.py checks on the GPU at 640x480: the same pixels are
+    filled, and values agree to 1e-5 m."""
+    from chip_smoke import fill_smooth_reference
+    from vulcan_tpu.ops.splat import _fill_and_smooth
 
     rng = np.random.default_rng(5)
-    d = rng.uniform(0.5, 3.0, (48, 128)).astype(np.float32)
+    d = np.cumsum(rng.uniform(-0.01, 0.01, (48, 128)), axis=1) + 1.5
+    d[:, 64:] += 0.5                          # a silhouette step
     d[rng.random((48, 128)) < 0.25] = np.inf  # holes to fill
-    d = jnp.asarray(d)
-    ref = _fill_smooth_math(d, TINY)
-    out = _fill_smooth_pallas(d, TINY, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), rtol=1e-6, atol=1e-6
-    )
+    d = d.astype(np.float32)
+    got = np.asarray(_fill_and_smooth(jnp.asarray(d), TINY))
+    ref = fill_smooth_reference(d, TINY)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    fin = np.isfinite(ref)
+    assert fin.sum() > 0.8 * d.size
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=0, atol=1e-5)
+
+
+def test_pack_surfels_matches_take_along_axis():
+    """The one-hot matmul surfel placement is bit-exact against the
+    take_along_axis reference (chip_smoke.py runs the same check at the
+    production chunk of 1024 rows on the GPU)."""
+    from chip_smoke import pack_surfels_mismatches
+
+    assert pack_surfels_mismatches(64, TINY, seed=1) == 0
+
+
+def test_select_voxel_rgb_matches_take_along_axis():
+    """The splat color-byte select (one-hot matmul) is bit-exact against
+    take_along_axis (chip_smoke.py: 2048 x 96 on the GPU)."""
+    from chip_smoke import select_rgb_mismatches
+
+    assert select_rgb_mismatches(64, 96, seed=2) == 0
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_gather_auto_is_the_same_on_every_backend(backend, monkeypatch):
+    """``auto`` resolves to one fixed choice whatever the backend: flat
+    integration gathers and flat ICP association."""
+    from vulcan_tpu.ops import icp
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert CFG.integrate_gather == "auto" and CFG.assoc_patch == "auto"
+    assert sparse.resolve_integrate_gather(CFG) == "flat"
+    assert not icp.patch_assoc_enabled(CFG)
+    onehot = dataclasses.replace(CFG, integrate_gather="onehot")
+    assert sparse.resolve_integrate_gather(onehot) == "onehot"
+    assert icp.patch_assoc_enabled(dataclasses.replace(CFG, assoc_patch="on"))
 
 
 def test_onehot_patch_gather_matches_flat_exactly():
-    """The one-hot MXU patch-gather integrate path must agree with the
+    """The one-hot matmul patch-gather integrate path must agree with the
     flat per-element gather path.  At this scene's range every block's
     projection fits the mip-0 patch budget, so the nearest-sample is
     IDENTICAL and the paths must match bit-for-bit."""

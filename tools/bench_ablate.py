@@ -1,4 +1,4 @@
-"""Stage-ablation timing of the fused step on the real TPU.
+"""Stage-ablation timing of the fused step on the accelerator.
 
 Renders the bench frames ONCE, then times fusion.step variants with
 individual stages compiled out (Config.ablate) -- the difference against

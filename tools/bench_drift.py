@@ -1,4 +1,4 @@
-"""Long-run drift characterization on the real TPU (VERDICT r2 item 8).
+"""Long-run drift characterization on the accelerator.
 
 A full 2-pi orbit (120 frames, 640x480) with Kinect-class sensor noise,
 tracked online by the production pipeline (no ground-truth poses).

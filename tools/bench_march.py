@@ -1,4 +1,4 @@
-"""Bisect the raycast march cost on TPU: which part of the loop body is slow."""
+"""Bisect the raycast march cost: which part of the loop body is slow."""
 import sys
 import time
 

@@ -3,8 +3,8 @@
 VERDICT r2 item 9: the sharding docstring claimed replicated integration
 "costs a small fraction" without a measurement.  This times steady-state
 online steps on a 1-device vs an N-device host-platform (CPU) mesh --
-NOT TPU ICI, so the number characterizes the sharded program's division
-of labor (per-pixel stages split N ways, volume stages replicated), not
+not an interconnect, so the number characterizes the sharded program's
+division of labor (per-pixel stages split N ways, volume stages replicated), not
 interconnect performance.  Run in a clean process:
 
   JAX_PLATFORMS=cpu python tools/bench_multichip.py [n_devices=8]

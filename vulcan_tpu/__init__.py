@@ -1,6 +1,6 @@
-"""vulcan-tpu: TPU-native dense RGB-D 3D reconstruction.
+"""vulcan-tpu: dense RGB-D 3D reconstruction in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the CUDA
+A JAX/XLA framework with the capabilities of the CUDA
 reference pipeline mkaspr/Vulcan (InfiniTAM-style TSDF fusion; see
 SURVEY.md): bilateral depth preprocessing, voxel-block-hashed TSDF+color
 fusion, per-pixel raycast rendering, frame-to-model projective ICP, and

@@ -42,14 +42,13 @@ def build_parser():
     r.add_argument("--mode", default="combined",
                    choices=["depth", "color", "combined", "light"],
                    help="tracking mode (default: combined -- geometric + "
-                        "photometric, the robust production choice: the "
-                        "round-5 replays measured depth-only ICP sliding "
-                        "into a wrong basin on the cluttered-desk scene at "
-                        "HEALTHY conditioning scores, a failure no online "
-                        "statistic flags, while combined mode holds 0.022 m "
-                        "ATE at >=30 FPS device-bound.  'depth' is the "
-                        "max-throughput option for well-conditioned "
-                        "geometry (52+ FPS at 640x480)")
+                        "photometric, the robust production choice: "
+                        "depth-only ICP was measured sliding into a wrong "
+                        "basin on the cluttered-desk scene at HEALTHY "
+                        "conditioning scores, a failure no online "
+                        "statistic flags, while combined mode holds "
+                        "0.022 m ATE.  'depth' is the max-throughput "
+                        "option for well-conditioned geometry)")
     r.add_argument("--known-poses", action="store_true",
                    help="fusion-only with ground-truth poses")
     r.add_argument("--mesh-out", help="write final mesh PLY here")
@@ -243,11 +242,8 @@ def cmd_run(args):
             pipe.process(depth, color, pose=pose)
         if i == 0:
             import jax
-            import jax.numpy as jnp
 
-            # Sum-barrier: readiness of the donated output buffer can
-            # report early on some platforms (see bench.py barrier()).
-            jax.block_until_ready(jnp.sum(pipe.state.model.depth))
+            jax.block_until_ready(pipe.state)
             if mesh_fn is not None:
                 # Compile the extraction before the timer starts.
                 pipe.state, warm_mesh = mesh_fn(pipe.state)
@@ -275,9 +271,8 @@ def cmd_run(args):
             print(json.dumps(d))
 
     import jax
-    import jax.numpy as jnp
 
-    jax.block_until_ready(jnp.sum(pipe.state.model.depth))
+    jax.block_until_ready(pipe.state)
     if trace_ctx is not None:
         trace_ctx.__exit__(None, None, None)
     elapsed = time.perf_counter() - (t_loop or time.perf_counter())

@@ -43,13 +43,11 @@ class Config:
     # --- integration ---
     integrate_gather: str = "auto"     # depth-image sampling: "onehot"
                                        # (per-block mip patches + one-hot
-                                       # MXU matmul gather, ~8x the flat
-                                       # element-gather rate on TPU --
-                                       # tools/bench_patch_gather.py),
-                                       # "flat" (per-element gathers), or
-                                       # "auto" (onehot on TPU, flat
-                                       # elsewhere -- the dense one-hot is
-                                       # hostile to CPU test runtimes)
+                                       # matmul gather), "flat" (per-
+                                       # element gathers), or "auto" (=
+                                       # flat on every backend, the GPU
+                                       # measurement in PERF.md;
+                                       # sparse.resolve_integrate_gather)
     integrate_chunk: int = 1024        # visible blocks fused per loop round
     depth_raw_scale: float = 5000.0    # uint16 depth units per meter (TUM)
     depth_min: float = 0.1             # valid depth range (meters)
@@ -64,21 +62,17 @@ class Config:
     raycast_coarse: int = 4            # coarse march at 1/N resolution
     raycast_step_scale: float = 0.75   # sample spacing in units of mu
     raycast_coarse_compact: int = 2    # survivor-compaction divisor for the
-                                       # coarse march (0 = off).  Measured
-                                       # round 5 (640x480, 9.7k-block
-                                       # orbit): compaction on = the
-                                       # lax.cond costs ~30 ms of branch
-                                       # tuple copies but halves the
-                                       # coarse sample work; off = the
-                                       # full-width coarse while reads
-                                       # 53 ms.  Net: keep it on.
+                                       # coarse march (0 = off): the
+                                       # compaction's lax.cond copies
+                                       # branch tuples but halves the
+                                       # coarse sample work (not yet
+                                       # measured on the GPU)
     raycast_fine_compact: int = 4      # same for the full-res fine march
-                                       # (307200 rays: compaction is worth
-                                       # ~3x there)
+                                       # (307200 rays)
     refine_steps: int = 1              # trilinear secant polish rounds
     render_mode: str = "splat"         # "splat" (surfel scatter renderer,
-                                       #   ~2x faster, equal tracking ATE)
-                                       # or "march" (hierarchical raycast)
+                                       #   equal tracking ATE) or "march"
+                                       #   (hierarchical raycast)
     splat_fill_rounds: int = 2         # hole-fill dilation rounds
     splat_band: float = 0.3            # |tsdf| gate (mu units) for voxel
                                        # surfels: wide enough for a
@@ -148,8 +142,8 @@ class Config:
                                        # basin width for ~free
                                        # per level; GN re-linearizes densely
                                        # between gathers (warp-once: the
-                                       # association gathers dominate ICP
-                                       # cost on TPU, ~120M random elem/s)
+                                       # random-access association gathers
+                                       # dominate ICP cost)
     icp_stride: tuple[int, ...] = (2, 1, 1)
                                        # live-pixel stride per level (fine ->
                                        # coarse): 4x fewer association
@@ -159,10 +153,11 @@ class Config:
                                        # diverges the 12 deg/frame large-
                                        # motion canary (five-class test)
     assoc_patch: str = "auto"          # ICP association gathers on the
-                                       # non-coarsest levels: "auto"
-                                       # (one-hot MXU patch gather on
-                                       # TPU, flat elsewhere), "on",
-                                       # "off", "geom" (patch the
+                                       # non-coarsest levels: "on" (one-
+                                       # hot matmul patch gather), "off"
+                                       # (flat), "auto" (= off on every
+                                       # backend, the GPU measurement in
+                                       # PERF.md), "geom" (patch the
                                        # geometric maps but keep the
                                        # photometric samples on the
                                        # flat bilinear path).  See
@@ -174,10 +169,9 @@ class Config:
                                        # rounds absorb global motion
                                        # (windows would clip it), the
                                        # rest re-associate a nearly
-                                       # converged warp -- flat gathers
-                                       # there cost ~2.5 ms/frame
-                                       # (round-3 trace, icp.py:292).
-                                       # Large value = always flat.
+                                       # converged warp.  Large value =
+                                       # always flat.  Only read when
+                                       # assoc_patch enables patches.
     motion_prediction: float = 0.5     # damped constant-velocity tracker
                                        # init: extrapolate this fraction
                                        # of the last inter-frame motion
@@ -206,7 +200,7 @@ class Config:
                                        # plane scenes: point-to-plane ICP
                                        # slides along the plane while error/
                                        # inlier health stays perfect --
-                                       # PERFORMANCE.md desk analysis).  The
+                                       # the desk-scene analysis).  The
                                        # frame still TRACKS (the observable
                                        # DoF remain better than holding) but
                                        # is NOT fused (slid geometry must not
@@ -243,8 +237,8 @@ class Config:
                                        # orbit's floor-heavy views dip to
                                        # 0.07-0.2 while tracking at 6 mm --
                                        # no frame-local spectrum threshold
-                                       # separates them (PERFORMANCE.md
-                                       # round-5 timelines).  The desk-
+                                       # separates them (round-5 replay
+                                       # timelines).  The desk-
                                        # class fix is mode="combined", the
                                        # CLI default.  Requires
                                        # degen_min_eig > 0.  Only affects
@@ -263,20 +257,18 @@ class Config:
                                        # (pyramid_levels = all).  Default 2
                                        # = skip the finest level: measured
                                        # on the 240-frame desk orbit this is
-                                       # BOTH faster (device 32.3 -> 31.7
-                                       # ms/frame) and more accurate (ATE
-                                       # 0.0244 -> 0.0216 -- the full-res
-                                       # splat color that feeds the finest
-                                       # photometric rows is the noisiest).
+                                       # more accurate (ATE 0.0244 ->
+                                       # 0.0216 -- the full-res splat color
+                                       # that feeds the finest photometric
+                                       # rows is the noisiest) and cheaper.
                                        # The finest level's
                                        # photometric machinery is the most
                                        # expensive piece of combined mode
                                        # (full-res model-side 3x3 intensity/
                                        # gradient maps + 56 extra patch-dot
                                        # byte columns) -- see ops/icp.py
-                                       # track() for the knob's mechanics
-                                       # and PERFORMANCE.md round 4 for the
-                                       # measured FPS/ATE trade.  Ignored
+                                       # track() for the knob's
+                                       # mechanics.  Ignored
                                        # by mode="color" (no geometric term
                                        # to fall back on).
 

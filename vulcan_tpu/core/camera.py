@@ -1,6 +1,6 @@
 """Pinhole camera model.
 
-TPU-native equivalent of the reference's ``Projection`` (SURVEY.md component
+JAX equivalent of the reference's ``Projection`` (SURVEY.md component
 #4, ``projection.h`` [M]): intrinsics as a tiny pytree with vectorized
 project / unproject over whole images.  Pixel coordinates use the plain
 TUM/OpenCV convention: a 3D point (x, y, z) in camera space projects to

@@ -1,6 +1,6 @@
 """Frame and pyramid containers.
 
-TPU-native equivalent of the reference's ``Frame`` / ``Image`` /
+JAX equivalent of the reference's ``Frame`` / ``Image`` /
 ``ColorImage`` / ``Pyramid`` device containers (SURVEY.md components #5-#7):
 a Frame is a pytree of (H, W[,C]) jnp arrays plus camera + pose, so whole
 pyramids trace through one jitted step.

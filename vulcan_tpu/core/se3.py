@@ -1,10 +1,10 @@
 """SE(3) rigid transforms as pytrees.
 
-TPU-native equivalent of the reference's host+device ``Transform`` /
+JAX equivalent of the reference's host+device ``Transform`` /
 ``Matrix3f``/``Vector3f`` math core (SURVEY.md component #3, ``transform.h``
 [M]): instead of fixed-size structs usable inside CUDA kernels, poses are tiny
 pytrees of jnp arrays that trace through jit/vmap/scan and live on device, so
-the ICP pose update never leaves the chip.
+the ICP pose update never leaves the device.
 
 Conventions:
   * ``SE3`` maps points from its *source* frame to its *target* frame:

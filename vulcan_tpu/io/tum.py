@@ -6,8 +6,9 @@ Reads the standard TUM format: ``depth.txt`` / ``rgb.txt`` /
 the same greedy nearest-neighbor algorithm as the TUM ``associate.py``
 tools (reimplemented in utils/evaluate.py -- no network here).
 
-Decoding uses OpenCV when available; the native C++ loader in
-``vulcan_tpu/native`` prefetches + decodes frames off the Python thread.
+PNGs decode through the native C++ library in ``vulcan_tpu/native``
+(libpng), whose prefetching loader also decodes frames off the Python
+thread during iteration.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from ..utils.evaluate import associate_timestamps
@@ -47,6 +49,17 @@ def _read_groundtruth(path: str):
             ts.append(vals[0])
             poses.append(vals[1:8])  # tx ty tz qx qy qz qw
     return np.asarray(ts), np.asarray(poses)
+
+
+def _native():
+    """The native decoder, built on first use; raises if it cannot be."""
+    if not native.available():
+        raise RuntimeError(
+            "TUM PNG decoding needs the native library; build it with "
+            "`python -m vulcan_tpu.native.build` (needs g++ with C++17 and "
+            "the libpng and zlib development headers)"
+        )
+    return native
 
 
 def quat_to_rotmat(q: np.ndarray) -> np.ndarray:
@@ -121,25 +134,7 @@ class TumDataset:
         resized captures)."""
         if not self.frames:
             return PinholeCamera.tum_default()
-        w, h = 640, 480
-        try:
-            from .. import native
-
-            if native.available():
-                w, h = native.png_probe(self.frames[0].depth_path)
-            else:
-                raise RuntimeError
-        except Exception:
-            try:
-                import cv2
-
-                img = cv2.imread(
-                    self.frames[0].depth_path, cv2.IMREAD_UNCHANGED
-                )
-                if img is not None:
-                    h, w = img.shape[:2]
-            except Exception:
-                pass
+        w, h = _native().png_probe(self.frames[0].depth_path)
         sx, sy = w / 640.0, h / 480.0
         base = PinholeCamera.tum_default()
         return PinholeCamera.create(
@@ -154,18 +149,12 @@ class TumDataset:
 
     def load(self, idx: int):
         """-> (depth (H,W) f32 meters, color (H,W,3) f32, gt_pose SE3|None)."""
-        import cv2
-
+        lib = _native()
         ref = self.frames[idx]
-        d16 = cv2.imread(ref.depth_path, cv2.IMREAD_UNCHANGED)
-        if d16 is None:
-            raise IOError(f"failed to decode depth image {ref.depth_path}")
-        depth = d16.astype(np.float32) / DEPTH_SCALE
+        w, h = lib.png_probe(ref.depth_path)
+        depth = lib.decode_depth(ref.depth_path, w, h, DEPTH_SCALE)
         if ref.rgb_path:
-            bgr = cv2.imread(ref.rgb_path, cv2.IMREAD_COLOR)
-            if bgr is None:
-                raise IOError(f"failed to decode rgb image {ref.rgb_path}")
-            color = bgr[..., ::-1].astype(np.float32) / 255.0
+            color = lib.decode_rgb(ref.rgb_path, w, h)
         else:
             color = np.zeros(depth.shape + (3,), np.float32)
         pose = None
@@ -176,26 +165,13 @@ class TumDataset:
         return depth, color, pose
 
     def __iter__(self):
-        """Iterate (depth, color, gt_pose), preferring the native
-        prefetching loader (decode overlaps device compute)."""
-        try:
-            from .. import native
-
-            if native.available():
-                yield from self._iter_native()
-                return
-        except Exception:
-            pass
-        for i in range(len(self)):
-            yield self.load(i)
-
-    def _iter_native(self):
+        """Iterate (depth, color, gt_pose) through the native prefetching
+        loader (decode overlaps device compute)."""
         import jax.numpy as jnp
 
-        from .. import native
-
-        w, h = native.png_probe(self.frames[0].depth_path)
-        loader = native.PrefetchLoader(
+        lib = _native()
+        w, h = lib.png_probe(self.frames[0].depth_path)
+        loader = lib.PrefetchLoader(
             [f.depth_path for f in self.frames],
             [f.rgb_path for f in self.frames],
             w,

@@ -1,8 +1,10 @@
 """ctypes bindings for the native runtime (decode/prefetch/PLY).
 
-Built with ``python -m vulcan_tpu.native.build`` (or lazily on first use).
-Everything here has a pure-Python fallback -- the native path exists so
-host-side IO overlaps with device compute (SURVEY.md §7: double-buffer
+Built with ``python -m vulcan_tpu.native.build`` (or lazily on first use)
+from ``src/native.cpp`` into this package directory; needs g++ (C++17)
+and the libpng/zlib development headers.  TUM PNG decoding requires it;
+the PLY writer falls back to Python without it.  The prefetching loader
+overlaps host-side IO with device compute (SURVEY.md §7: double-buffer
 frame upload), matching the reference's C++ runtime with a C++ runtime.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ def build(verbose: bool = False) -> bool:
     """Compile the native library in-place. Returns success."""
     src = os.path.join(_DIR, "src", "native.cpp")
     cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+        "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
         src, "-o", _LIB_PATH, "-lpng", "-lz", "-lpthread",
     ]
     try:

@@ -1,14 +1,14 @@
 // vulcan-tpu native runtime: dataset decode/prefetch + mesh export.
 //
-// TPU-native counterpart of the reference's C++ app-side runtime
-// (SURVEY.md component #21: dataset IO in apps/, component #19 Exporter):
-// the TPU owns all compute, but frame decode and mesh serialization are
-// host work, implemented here so they overlap with device execution:
+// Counterpart of the reference's C++ app-side runtime (SURVEY.md
+// component #21: dataset IO in apps/, component #19 Exporter): the
+// accelerator owns all compute, but frame decode and mesh serialization
+// are host work, implemented here so they overlap with device execution:
 //
 //   * PNG decode (libpng): TUM 16-bit depth -> float32 meters, 8-bit RGB
 //     -> float32 [0,1].
 //   * Prefetching loader: worker threads decode ahead into a bounded ring
-//     buffer while the TPU runs the previous step (the reference's
+//     buffer while the device runs the previous step (the reference's
 //     synchronous cv::imread per frame is a pipeline bubble).
 //   * PLY writer with O(n) hash-based vertex welding (replaces the numpy
 //     sort-based weld for large meshes).

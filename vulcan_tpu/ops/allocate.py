@@ -1,6 +1,6 @@
 """Batched block allocation and visible-block compaction.
 
-TPU-native rebuild of SURVEY.md components #12-#13 (reference: per-pixel
+JAX rebuild of SURVEY.md components #12-#13 (reference: per-pixel
 allocation kernels with atomic inserts + stream compaction in ``volume.cu``
 [M] [P:1410.0925]).  The CUDA atomics become a deterministic batched
 pipeline, which is the idiomatic XLA answer (SURVEY.md §3 parallelism table):
@@ -39,14 +39,10 @@ def candidate_block_codes(
     Returns (N,) int32 codes with INVALID_CODE holes, where
     N = ceil(H/ss) * ceil(W/ss) * alloc_samples.
     """
-    from .preprocess import subsample_stride
-
     ss = config.alloc_subsample
-    d = subsample_stride(depth, ss)
+    d = depth[::ss, ::ss]
     h, w = d.shape
-    uv = subsample_stride(
-        camera.pixel_grid(depth.shape[0], depth.shape[1]), ss
-    )
+    uv = camera.pixel_grid(depth.shape[0], depth.shape[1])[::ss, ::ss]
     rays_cam = camera.unproject(uv, jnp.ones_like(d))        # z = 1
     rays_world = pose.rotate(rays_cam)
     origin = pose.translation

@@ -1,15 +1,15 @@
 """Voxel-block volume state and sparse TSDF sampling.
 
-TPU-native rebuild of the reference's ``Volume`` / ``Block`` / ``Voxel``
+JAX rebuild of the reference's ``Volume`` / ``Block`` / ``Voxel``
 (SURVEY.md components #10, #14; ``volume.h/.cu``, ``block.h`` [M];
 InfiniTAM 8^3 voxel blocks [P:1410.0925]).  All storage is static-shape
-HBM-resident arrays:
+device-resident arrays:
 
   * voxel data: (num_blocks, 512[,3]) float32 -- block b, flat local index
     lidx = (lx*8 + ly)*8 + lz.  Flat 2D storage pins XLA to one natural
     layout: 4D (NB,8,8,8) arrays let the compiler pick exotic layouts per
     consumer and insert full-volume relayout copies inside the integrate
-    loop (measured ~60-170ms/frame at production sizes);
+    loop;
   * hash table: see ``ops/hashing.py`` (open addressing, packed codes);
   * visible list: fixed capacity with a valid count (CUDA stream compaction
     becomes sort-based compaction, ``ops/allocate.py``).
@@ -67,7 +67,7 @@ class VolumeState:
     # ``lidx<<16 | tsdf_q15`` and sorted to a row prefix; EMPTY_SURFEL
     # fills the tail.  The splat renderer scatters these compacted rows
     # instead of all 512 voxels of every surface block (~4x fewer
-    # scatter lanes at the measured ~140M lanes/s).
+    # scatter lanes).
     surfpack: jax.Array       # (num_blocks, surfel_slots) int32
     surf_count: jax.Array     # (num_blocks,) int32 live surfels per block
     surf_overflow: jax.Array  # () int32 surfels dropped by slot capacity
@@ -188,6 +188,19 @@ def pack_surfels(tsdf_rows, weight_rows, band: float, slots: int):
     collapse at frame ~12.)  Returns (surf (C,slots), count (C,),
     dropped (C,)).
     """
+    val, pos, count = _surfel_slots(tsdf_rows, weight_rows, band, slots)
+    out = place_surfels(val, pos, slots)
+    kept = jnp.minimum(count, slots)
+    slot_live = jax.lax.broadcasted_iota(
+        jnp.int32, (1, slots), 1
+    ) < kept[:, None]
+    out = jnp.where(slot_live, out, EMPTY_SURFEL)
+    return out, kept, count - kept
+
+
+def _surfel_slots(tsdf_rows, weight_rows, band: float, slots: int):
+    """Packed surfel words (C, n), their slot (C, n; -1 = not kept) and
+    the live count (C,) of each row (see ``pack_surfels``)."""
     n = tsdf_rows.shape[1]
     lidx = jnp.arange(n, dtype=jnp.int32)[None, :]
     mag = jnp.clip(
@@ -202,16 +215,11 @@ def pack_surfels(tsdf_rows, weight_rows, band: float, slots: int):
         | (mag << 10) | (sign << 9) | lidx
     )                                                      # 30 bits
 
-    # Two-priority compaction instead of a per-row SORT: a 512-lane
-    # bitonic sort per integrated row was the single hottest op of the
-    # whole frame (~10 ms/frame at 640x480, round-3 trace) while all the
-    # priority actually guarantees is "overflow sheds OUTER-shell voxels
-    # first".  The inner half-band (|tsdf| < band/2, the surface-crossing
-    # voxels; worst-case oblique-plane shell ~8*8*2.6 < slots) is placed
-    # first, the outer half-band after it -- two cumsums -- and the
-    # placement itself is a one-hot matmul (exact: values < 2^24 are
-    # integers, each slot receives exactly one hit, and three 8-bit
-    # value columns survive the MXU's bf16 operand truncation).
+    # Two-priority compaction instead of a per-row SORT: all the priority
+    # has to guarantee is "overflow sheds OUTER-shell voxels first".  The
+    # inner half-band (|tsdf| < band/2, the surface-crossing voxels;
+    # worst-case oblique-plane shell ~8*8*2.6 < slots) is placed first,
+    # the outer half-band after it -- two cumsums.
     inner = live & (jnp.abs(tsdf_rows) < 0.5 * band)
     outer = live & ~inner
     n_inner = jnp.sum(inner, axis=1, keepdims=True)
@@ -221,7 +229,20 @@ def pack_surfels(tsdf_rows, weight_rows, band: float, slots: int):
         n_inner + jnp.cumsum(outer, axis=1) - 1,
     )
     pos = jnp.where(live & (pos < slots), pos, -1)
+    count = jnp.sum(live, axis=1).astype(jnp.int32)
+    return val, pos, count
 
+
+def place_surfels(val, pos, slots: int):
+    """Scatter each row's words into their slots: ``out[c, pos[c, i]] =
+    val[c, i]`` for ``pos >= 0``; slots nobody claims read 0.
+
+    A one-hot matmul over byte columns: every product is 0/1 times a
+    byte, bf16 holds bytes exactly, each slot receives at most one hit
+    (slots are unique per row) and the sum accumulates in f32, so the
+    result is exact -- checked against a ``take_along_axis`` reference at
+    full size by ``chip_smoke.py`` on the GPU and at small size by the
+    CPU tests."""
     iota = jax.lax.broadcasted_iota(jnp.int32, (1, 1, slots), 2)
     onehot = (pos[:, :, None] == iota).astype(jnp.bfloat16)
     rhs = jnp.stack(
@@ -238,18 +259,10 @@ def pack_surfels(tsdf_rows, weight_rows, band: float, slots: int):
         dimension_numbers=(((1,), (1,)), ((0,), (0,))),
         preferred_element_type=jnp.float32,
     ).astype(jnp.int32)                                    # (C, slots, 4)
-    out = (
+    return (
         (cols[..., 0] << 24) | (cols[..., 1] << 16)
         | (cols[..., 2] << 8) | cols[..., 3]
     )
-
-    count = jnp.sum(live, axis=1).astype(jnp.int32)
-    kept = jnp.minimum(count, slots)
-    slot_live = jax.lax.broadcasted_iota(
-        jnp.int32, (1, slots), 1
-    ) < kept[:, None]
-    out = jnp.where(slot_live, out, EMPTY_SURFEL)
-    return out, kept, count - kept
 
 
 def unpack_surfels(surf_rows):

@@ -1,8 +1,8 @@
 """Spatial hashing for voxel blocks.
 
-TPU-native rebuild of SURVEY.md components #11-#12 (reference: ``hash.h`` /
+JAX rebuild of SURVEY.md components #11-#12 (reference: ``hash.h`` /
 ``volume.cu`` [M], InfiniTAM bucket+excess-list hash with CUDA atomics
-[P:1410.0925]).  Design differences, deliberate and TPU-first:
+[P:1410.0925]).  Design differences, deliberate:
 
   * **Packed-key open addressing**: block coords pack into one int32 code
     (``blocks.pack_block_coords``), so the table is two flat int32 arrays

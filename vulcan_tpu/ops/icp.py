@@ -1,11 +1,11 @@
 """Frame-to-model projective ICP tracking.
 
-TPU-native rebuild of the reference ``Tracker`` hierarchy (SURVEY.md
+JAX rebuild of the reference ``Tracker`` hierarchy (SURVEY.md
 component #17: ``depth_tracker`` geometric ICP, ``color_tracker``
 photometric [M]; coarse-to-fine point-to-plane Gauss-Newton with the 6x6
 normal equations built and reduced on device [B] [P:1410.0925]).
 
-TPU-first differences from the CUDA reference (SURVEY.md §4.2):
+Differences from the CUDA reference (SURVEY.md §4.2):
   * per-pixel residual/Jacobian rows are one vectorized XLA pass; the 6x6
     ``J^T W J`` build fuses into 27 planar elementwise+reduce sums
     (``_pp_normal_eqs``) with no (N, 6) Jacobian materialized, instead of
@@ -31,6 +31,10 @@ from ..core.se3 import SE3
 from ..utils.pytree import pytree_dataclass
 from .raycast import Render
 
+# f32 products ask for full precision: on the GPU the default may run
+# them in TF32 (~3 decimal digits), as core/se3.py notes too.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @pytree_dataclass
 class ModelMaps:
@@ -38,12 +42,11 @@ class ModelMaps:
 
     Vertex channels are stored PLANAR ((H, W) each, split once per
     frame): association gathers run per channel, and slicing a channel
-    out of an (H, W, 3) T(4,128)-layout array costs a ~0.8 ms strided
-    DMA on this TPU -- doing that inside every association round
-    dominated ICP's cost (xplane trace, PERFORMANCE.md).
+    out of an (H, W, 3) array inside every association round is a
+    strided copy each time.
 
-    Association is gather-rate-bound (~130M random elem/s), so the maps
-    are bit-packed to minimize gathers per associated pixel:
+    Association is gather-rate-bound, so the maps are bit-packed to
+    minimize gathers per associated pixel:
       * vertex -> TWO int32s holding three 21-bit signed fixed-point
         values (p1 = qx<<11 | qy[20:10], p2 = qy[9:0]<<22 | qz<<1) at
         ``_VERTEX_SCALE`` steps/m: 15 um quantization over a +-16 m
@@ -209,7 +212,7 @@ def _depth_flat_mask(
     range: a smooth slanted surface (a floor at grazing angle) has a
     large range but small per-step jumps and must KEEP its photometric
     samples -- dominant planes are exactly where the photometric term
-    rescues the point-to-plane degeneracy (PERFORMANCE.md desk section).
+    rescues the point-to-plane degeneracy (the desk-scene analysis).
     A fore/background silhouette is a single large jump.  ``thresh``
     defaults near the TSDF truncation band: two samples of one
     continuous fused surface cannot be further apart than the band.
@@ -251,7 +254,7 @@ def model_pyramid(
     hot path; normals+validity pack to one int32 image here, and every
     coarser level subsamples the planar views.  ``with_intensity=False``
     (geometric-only tracking) skips the intensity image entirely."""
-    from .preprocess import intensity_from_color, subsample_stride
+    from .preprocess import intensity_from_color
 
     origin = _snap_origin(render.pose.translation)
     vp1, vp2 = _pack_vertices(render.vx, render.vy, render.vz, origin)
@@ -277,9 +280,9 @@ def model_pyramid(
     maps = []
     for level in range(levels):
         if level > 0:
-            vp1, vp2 = subsample_stride(vp1, 2), subsample_stride(vp2, 2)
-            npack, ok = subsample_stride(npack, 2), subsample_stride(ok, 2)
-            c = subsample_stride(c, 2) if c is not None else None
+            vp1, vp2 = vp1[::2, ::2], vp2[::2, ::2]
+            npack, ok = npack[::2, ::2], ok[::2, ::2]
+            c = c[::2, ::2] if c is not None else None
             cam = cam.subsampled(2)
         maps.append(ModelMaps(vp1, vp2, npack, c, ok, origin, cam, w2c))
     return tuple(maps)
@@ -354,13 +357,12 @@ def associate_depth(
     For each live pixel, warp into the model frame at ``pose`` and sample
     the model vertex/normal maps (nearest).  Returns (v_m, n_m, ok) --
     fixed correspondences for the dense GN re-linearizations that follow
-    (warp-once: on TPU the random-access sampling here dominates ICP cost,
-    so it runs ``icp_assoc[level]`` times per level, not once per GN
+    (warp-once: the random-access sampling here dominates ICP cost, so
+    it runs ``icp_assoc[level]`` times per level, not once per GN
     iteration like the reference's per-pixel kernel).
 
-    Sampling is per-CHANNEL from the planar (H, W) model arrays:
-    gathers from (H, W, 3) arrays carry a minor-dim-3 T(4,128) layout
-    and run at about half the flat rate (PERFORMANCE.md cost model).
+    Sampling is per-CHANNEL from the planar (H, W) model arrays, which
+    avoids gathers with a minor dimension of 3.
     """
     v_w = pose.apply(live.vertices)
     p_m = model.world_to_cam.apply(v_w)
@@ -393,17 +395,15 @@ def associate_depth(
 
 
 # ---------------------------------------------------------------------------
-# Patch-based association (one-hot MXU gather)
+# Patch-based association (one-hot matmul gather; Config.assoc_patch)
 # ---------------------------------------------------------------------------
 #
-# Association is gather-rate-bound: ~140M random lanes/s on the v5e means
-# each (H, W)-sized association round costs ~0.8 ms x 3 maps
-# (PERFORMANCE.md round 3).  But the warp is locally smooth -- a tile of
-# live pixels lands in a compact model-image window -- so the same
-# one-hot-matmul gather that rebuilt integration applies: extract one
+# Association is gather-rate-bound.  But the warp is locally smooth --
+# a tile of live pixels lands in a compact model-image window -- so the
+# same one-hot-matmul gather as integration's applies: extract one
 # model patch per live tile (plain row gathers from 32-wide-tiled maps)
 # and gather all six value columns (hi/lo halves of vpack1/vpack2/npack)
-# with ONE batched MXU matmul per round.  Pixels whose warp leaves the
+# with ONE batched matmul per round.  Pixels whose warp leaves the
 # patch window (large parallax jumps, erratic motion) simply drop out of
 # that round's associations -- the coarsest level keeps flat gathers and
 # absorbs global motion first, and the constant-velocity prediction
@@ -454,11 +454,9 @@ class _PatchAssoc:
     SAME one-hot matmul as the geometric maps.  The 3x3 neighborhoods
     of the model intensity AND its two gradient images (16-bit,
     1/65535 steps over [0,1] / [-0.5,0.5], two values per int32) pack
-    to 14 extra maps, so the dot gains 56 byte-columns -- the MXU
-    processes up to 128 output columns per pass, so the marginal cost
-    is small, versus the ~14 flat gathers/px/round the bilinear
-    ``color_assoc`` path paid (measured 3x the whole geometric assoc
-    budget in combined mode).  The bilinear 2x2 footprint around the
+    to 14 extra maps, so the dot gains 56 byte-columns, versus the ~14
+    flat gathers/px/round of the bilinear ``color_assoc`` path.  The
+    bilinear 2x2 footprint around the
     warp point is ALWAYS inside the 3x3 around the rounded gather
     pixel, so blending each gathered 3x3 with f32 hat weights
     reconstructs the flat path's bilinear samples EXACTLY (up to the
@@ -540,17 +538,11 @@ class _PatchAssoc:
         ).reshape(-1)                               # M maps x T*96 rows
         rows = self.tiles[rids].reshape(M, T, _AP_P)
         # 8-BIT value planes (4 bytes per map): byte-sliced payloads are
-        # exact on the single-pass bf16 MXU path, unlike 16-bit halves
-        # which need Precision.HIGHEST (6x the passes) to survive
-        # operand truncation -- see _patch_gather_depth_color.
-        # Kept P-MINOR (T, 4*M, P): the old path transposed to a
-        # map-minor (T, P, M) layout just so the dot could contract the
-        # rhs's middle dim, and both the 5-D transpose and the byte ops
-        # on that exotic layout showed up in the combined-mode source
-        # trace (~3.5 ms/frame at icp.py rhs lines).  The NT-form dot in
-        # ``gather`` contracts the rhs's minor dim directly, so the only
-        # relayout left is a cheap major-order copy.  Column order
-        # (byte-major: c = b*M + m) is unchanged.
+        # exact in a bf16 matmul (bf16 holds every byte), unlike 16-bit
+        # halves -- see _patch_gather_depth_color.  Kept P-MINOR
+        # (T, 4*M, P): the NT-form dot in ``gather`` contracts the rhs's
+        # minor dim directly, so no map-minor relayout is needed.
+        # Column order is byte-major: c = b*M + m.
         planes = jnp.stack(
             [
                 (rows >> 24) & 0xFF,
@@ -589,11 +581,9 @@ class _PatchAssoc:
         pidx = jnp.where(inpatch, pv * (_AP_TILES * 32) + pu, -1)
         iota = jax.lax.broadcasted_iota(jnp.int32, (1, 1, _AP_P), 2)
         onehot = (pidx[:, :, None] == iota).astype(jnp.bfloat16)
-        # Single-pass bf16 MXU dot: exact BECAUSE the value columns are
-        # byte-sliced (see freeze_windows).  An earlier 16-bit-half
-        # variant silently truncated on the default bf16 path and
-        # collapsed tracking to ~2 inliers ON TPU ONLY; byte columns
-        # remove the need for the 6x-cost Precision.HIGHEST fix.
+        # bf16 dot, exact BECAUSE the value columns are byte-sliced (see
+        # freeze_windows): 0/1 x byte products, one hit per row, f32
+        # accumulation.
         vals = jax.lax.dot_general(
             onehot, self.rhs,
             dimension_numbers=(((2,), (2,)), ((0,), (0,))),
@@ -648,6 +638,13 @@ class _PatchAssoc:
         gu = blend(halves[9:18], -0.5)
         gv = blend(halves[18:27], -0.5)
         return v_mv, n_mv, ok_full & okn, (i_m0, gu, gv)
+
+
+def patch_assoc_enabled(config: Config) -> bool:
+    """``Config.assoc_patch`` with ``"auto"`` resolved to one fixed choice
+    on every backend: off (flat gathers), which the GPU measurement in
+    PERF.md prefers to the one-hot patch association."""
+    return config.assoc_patch in ("on", "geom")
 
 
 def _warp_uv(live: FrameMaps, model: ModelMaps, pose: SE3, config: Config):
@@ -755,9 +752,8 @@ def _fused_normal_eqs(j, r, w):
 
     All 29 scalars come from ONE stacked reduction, then the 6x6 is
     assembled by a static gather from the vector: building H with 27
-    .at[].set calls lowered to (6,6) scatter ops costing ~0.5 ms/frame
-    across the GN iterations (round-3 source-attributed trace), and a
-    materialized (N, 6) Jacobian forces a minor-dim-6 relayout.
+    .at[].set calls lowers to (6,6) scatter ops in every GN iteration,
+    and a materialized (N, 6) Jacobian forces a minor-dim-6 relayout.
     """
     parts = []
     for a in range(6):
@@ -806,15 +802,16 @@ def color_assoc(
     Returns fixed samples (i_m0, gu, gv, u0, v0, ok) for the dense
     first-order re-linearizations of ``color_rows_fixed`` -- the same
     warp-once trade the geometric path makes (association gathers
-    dominate ICP cost on TPU; the reference re-samples every iteration).
+    dominate ICP cost; the reference re-samples every iteration).
 
     (I, gx, gy, valid) ride TWO packed int32 words (16-bit fixed point,
     the same 1/65535 grid the fused patch path quantizes to), so each
     bilinear sample costs 8 random gathers instead of the 13 of three
     separate f32 images + a nearest validity probe -- this path runs
-    the coarsest level's first ``coarse_patch_after`` global-motion
-    rounds on TPU (~0.46M gathers/frame at the flat rate) and every
-    round of the CPU / ``assoc_patch="geom"`` control.  The dense pack
+    every photometric round unless ``assoc_patch`` enables the patch
+    path (then only the coarsest level's first ``coarse_patch_after``
+    global-motion rounds, or every round of the ``"geom"`` control).
+    The dense pack
     is pose-independent; XLA CSEs it across association rounds."""
     gx_img, gy_img = grads
     s = 65535.0
@@ -942,7 +939,7 @@ def _min_eig_normalized(H: jax.Array) -> jax.Array:
     the plane + 1 rotation about its normal).  The per-pixel residual
     and inlier count stay PERFECT while the pose slides along those
     directions -- the desk-scene replay showed 6-7 cm/frame of silent
-    drift at err=0.0035 / 26k inliers (PERFORMANCE.md).  The collapse
+    drift at err=0.0035 / 26k inliers.  The collapse
     is invisible to every magnitude statistic but explicit in H's
     spectrum: the normalized smallest eigenvalue drops 2-3 orders of
     magnitude (measured: well-constrained orbit scene ~0.1; two-plane
@@ -953,11 +950,9 @@ def _min_eig_normalized(H: jax.Array) -> jax.Array:
     inlier floors catch separately.
 
     Implementation: INVERSE POWER ITERATION with a small ridge, not
-    ``eigvalsh`` -- XLA's TPU eigh (QDWH) emits a long serialized stream
-    of tiny ops whose fixed per-op cost at 3 calls/frame regressed the
-    whole 640x480 step from ~26 to ~73 ms device time (round-4 bench).
-    Eight fixed iterations of Cholesky triangular solves cost the same
-    op shapes as one extra GN solve.  The Rayleigh quotient of
+    ``eigvalsh`` (an iterative eigensolver is a long serialized stream of
+    tiny ops at 3 calls/frame): eight fixed iterations of Cholesky
+    triangular solves cost the same op shapes as one extra GN solve.  The Rayleigh quotient of
     (Hn + dI)^-1 UNDERestimates its top eigenvalue until converged, so
     the returned min-eig only ever errs HIGH -- but the convergence
     ratio is (l2+d)/(lmin+d), which is ~1e4 for any actually degenerate
@@ -972,9 +967,13 @@ def _min_eig_normalized(H: jax.Array) -> jax.Array:
     x = jnp.full((6,), 6.0**-0.5)
     for _ in range(8):
         y = jax.scipy.linalg.cho_solve((L, True), x)
-        x = y * jax.lax.rsqrt(jnp.maximum(jnp.dot(y, y), 1e-38))
+        x = y * jax.lax.rsqrt(
+            jnp.maximum(jnp.dot(y, y, precision=_HIGHEST), 1e-38)
+        )
     # Rayleigh quotient of the inverse at the converged direction.
-    inv_lam = jnp.dot(x, jax.scipy.linalg.cho_solve((L, True), x))
+    inv_lam = jnp.dot(
+        x, jax.scipy.linalg.cho_solve((L, True), x), precision=_HIGHEST
+    )
     lam = 1.0 / jnp.maximum(inv_lam, 1e-30) - ridge
     # A zero/indefinite H (no inliers) NaNs the Cholesky: report 0.
     return jnp.where(jnp.isfinite(lam), jnp.maximum(lam, 0.0), 0.0)
@@ -1025,17 +1024,15 @@ def track(
             strides = (strides,) + (1,) * (config.pyramid_levels - 1)
         if strides[level] > 1:
             # Subsample the live side: association gathers dominate ICP's
-            # cost on TPU; point-to-plane accuracy is retained by the
-            # full-res model side and the statistics of ~19k pairs.
-            from .preprocess import subsample_stride as _ss
-
+            # cost; point-to-plane accuracy is retained by the full-res
+            # model side and the statistics of ~19k pairs.
             st = strides[level]
             live = FrameMaps(
-                depth=_ss(live.depth, st),
-                vertices=_ss(live.vertices, st),
-                normals=_ss(live.normals, st),
+                depth=live.depth[::st, ::st],
+                vertices=live.vertices[::st, ::st],
+                normals=live.normals[::st, ::st],
                 intensity=(
-                    _ss(live.intensity, st)
+                    live.intensity[::st, ::st]
                     if live.intensity is not None
                     else None
                 ),
@@ -1045,8 +1042,8 @@ def track(
         # Warp-once, ALL modes: ``icp_assoc[level]`` association (gather)
         # rounds, each followed by dense GN re-linearizations on the
         # fixed correspondences/intensity samples -- the reference
-        # re-associates every iteration, which on TPU pays the full
-        # random-access rate per iteration for associations that barely
+        # re-associates every iteration, which pays the full
+        # random-access cost per iteration for associations that barely
         # move.  Photometric terms use a first-order image model around
         # the sampled warp point (color_rows_fixed).
         rounds = max(1, min(config.icp_assoc[level], iters))
@@ -1057,10 +1054,7 @@ def track(
         # At the coarsest level, the FIRST ``coarse_patch_after``
         # rounds stay flat (wide basin), later rounds re-associate
         # a nearly converged warp through frozen patch windows.
-        patch_ok = config.assoc_patch in ("on", "geom") or (
-            config.assoc_patch == "auto"
-            and jax.default_backend() == "tpu"
-        )
+        patch_ok = patch_assoc_enabled(config)
         is_coarse = level == config.pyramid_levels - 1
         use_patch = patch_ok and not is_coarse
         patch_from = (

@@ -5,13 +5,13 @@ component #20 [M]: light estimation + shading for photometric tracking,
 recalled as ``light.h/.cu`` + ``light_tracker.*``; the reference mount
 was empty so the recalled point-light form could not be verified).
 
-TPU-native design: instead of an iteratively solved point light, the
+Design: instead of an iteratively solved point light, the
 illumination is a low-order real **spherical-harmonics gain field over
 surface normals** -- the standard 9-coefficient Lambertian lighting
 basis (Ramamoorthi & Hanrahan, "An Efficient Representation for
 Irradiance Environment Maps", 2001), which subsumes ambient +
 directional light (its order-0/1 subset) and is LINEAR in its
-coefficients.  That linearity is the whole point on TPU: estimation is
+coefficients.  That linearity is the whole point: estimation is
 one dense planar elementwise+reduce pass building a (9,9) normal matrix
 (no per-pixel scatter, no inner iteration) and a 9x9 Cholesky solve on
 device, so it fuses into the jitted tracking step with zero host syncs.

@@ -1,8 +1,8 @@
 """Colored marching-cubes mesh extraction from the sparse TSDF volume.
 
-TPU-native rebuild of the reference ``Extractor`` (SURVEY.md component #18,
+JAX rebuild of the reference ``Extractor`` (SURVEY.md component #18,
 ``extractor.cu`` [M]; per-voxel-cube classify + prefix-scan compaction +
-emit kernels [B]).  TPU-first structure:
+emit kernels [B]).  Structure:
 
   1. **Chunked halo construction**: instead of per-corner hash lookups (the
      CUDA pattern), each block gathers its 7 (+x/+y/+z/...) neighbor blocks
@@ -222,9 +222,8 @@ def _chunk_surface(volume, ids, row_valid, config: Config, act_frac: float):
     counts_c = jnp.where(live, g(counts), 0)
     vals_c = [g(v) for v in corner_vals]                    # 8 x (ACT,)
     # CHANNEL-PLANAR everywhere (3 x (ACT, ...) instead of (ACT, ..., 3)):
-    # minor-dim-3 f32 intermediates are laid out as T(8,128) tiles on
-    # this TPU, a 42x padding expansion that OOM'd the decode compile at
-    # production capacity -- the splat renderer's planar-channel lesson.
+    # minor-dim-3 f32 intermediates invite padded tiled layouts and
+    # relayout copies -- the splat renderer's planar-channel lesson.
     cols_c = []
     for ox, oy, oz in (
         (int(a), int(b), int(c)) for a, b, c in T.CORNER_OFFSETS
@@ -563,11 +562,9 @@ def cache_to_mesh(
     lane_ok = lane < jnp.minimum(total, cap)
     rb = gmap // ts                                         # (cap,)
 
-    # The whole decode runs CHANNEL-PLANAR ((cap,) per component): a
-    # (cap, 3) minor-dim-3 f32 intermediate is laid out as T(8,128)
-    # tiles on this TPU -- a 42x padding expansion that OOM'd the
-    # compile at cap=2M (976 MB per select).  Same lesson as the splat
-    # renderer's planar vertex channels.
+    # The whole decode runs CHANNEL-PLANAR ((cap,) per component), as
+    # the splat renderer's planar vertex channels do: no (cap, 3)
+    # minor-dim-3 intermediate at cap=2M.
     offs = [
         jnp.asarray(T.CORNER_OFFSETS[:, k], jnp.float32) for k in range(3)
     ]

@@ -1,10 +1,10 @@
 """Depth preprocessing: bilateral filter, vertex/normal lift, pyramids.
 
-TPU-native rebuild of SURVEY.md components #7-#9 (reference: one CUDA thread
-per pixel in ``filter.cu`` / ``frame.cu`` [M]).  On TPU these are pure
-vectorized XLA ops over whole (H, W) images: the fixed-radius bilateral
-window unrolls into shifted adds that XLA fuses into a single VPU loop, which
-is exactly the fusion the CUDA kernels do by hand.
+Rebuild of SURVEY.md components #7-#9 (reference: one CUDA thread per pixel
+in ``filter.cu`` / ``frame.cu`` [M]).  Here these are pure vectorized XLA ops
+over whole (H, W) images: the fixed-radius bilateral window unrolls into
+shifted adds that XLA fuses into a single loop, which is exactly the fusion
+the CUDA kernels do by hand.
 
 Invalid depth is 0.0 everywhere; every op preserves that convention.
 """
@@ -18,30 +18,6 @@ import jax.numpy as jnp
 from ..config import Config
 from ..core.camera import PinholeCamera
 from ..core.frame import Frame, FrameMaps
-
-
-def subsample_stride(x: jax.Array, s: int) -> jax.Array:
-    """``x[::s, ::s]`` for (H, W[, C]) arrays, computed fast.
-
-    A plain strided slice strides the LANE dimension of the T(8, 128)
-    tiled layout and lowers to a pathological DMA on this TPU --
-    measured 0.2 GB/s, ~1.6 ms per 640x480 plane
-    (tools/bench_subsample.py).  Row-stride (sublane, cheap) followed by
-    a minor-dim reshape split + static slice selects the identical
-    elements at 20 GB/s (100x).  Falls back to the plain slice when the
-    width does not divide by ``s``.
-    """
-    if s == 1:
-        return x
-    h, w = x.shape[0], x.shape[1]
-    if w % s != 0:
-        return x[::s, ::s]
-    r = x[::s]
-    hs = r.shape[0]
-    if x.ndim == 2:
-        return r.reshape(hs, w // s, s)[:, :, 0]
-    c = x.shape[2]
-    return r.reshape(hs, w // s, s, c)[:, :, 0, :]
 
 
 def _shift2d(img: jax.Array, dy: int, dx: int, fill=0.0) -> jax.Array:
@@ -60,8 +36,8 @@ def _shift2d(img: jax.Array, dy: int, dx: int, fill=0.0) -> jax.Array:
 
 
 def _shift_concat(d: jax.Array, dy: int, dx: int, fill=0.0) -> jax.Array:
-    """Static shift via concatenate (Pallas-safe: the TPU kernel lowering
-    rejects pad+dynamic-slice): out[y, x] = d[y+dy, x+dx], fill OOB."""
+    """Static shift of an (H, W) image via concatenate: out[y, x] =
+    d[y+dy, x+dx], ``fill`` outside."""
     h, w = d.shape
     if dy > 0:
         d = jnp.concatenate([d[dy:], jnp.full((dy, w), fill, d.dtype)], 0)
@@ -74,9 +50,14 @@ def _shift_concat(d: jax.Array, dy: int, dx: int, fill=0.0) -> jax.Array:
     return d
 
 
-def _bilateral_math(depth: jax.Array, config: Config) -> jax.Array:
-    """Bilateral window as pure shifted adds (shared by the XLA path and
-    the Pallas kernel body)."""
+def bilateral_filter(depth: jax.Array, config: Config) -> jax.Array:
+    """Edge-preserving depth denoise (reference component #8).
+
+    Gaussian in pixel space x Gaussian in depth difference; invalid (0)
+    neighbors are excluded; invalid centers stay invalid.  The
+    (2r+1)^2-tap window is a chain of static shifted adds that XLA fuses
+    into one elementwise loop.
+    """
     r = config.bilateral_radius
     inv_2ss = 1.0 / (2.0 * config.bilateral_sigma_space**2)
     inv_2sd = 1.0 / (2.0 * config.bilateral_sigma_depth**2)
@@ -95,43 +76,6 @@ def _bilateral_math(depth: jax.Array, config: Config) -> jax.Array:
             wacc = wacc + w
     out = jnp.where(wacc > 0.0, acc / jnp.maximum(wacc, 1e-12), 0.0)
     return jnp.where(valid_center, out, 0.0)
-
-
-def bilateral_filter(depth: jax.Array, config: Config) -> jax.Array:
-    """Edge-preserving depth denoise (reference component #8).
-
-    Gaussian in pixel space x Gaussian in depth difference; invalid (0)
-    neighbors are excluded; invalid centers stay invalid.  On TPU the
-    (2r+1)^2-tap window runs as one VMEM-resident Pallas stencil kernel
-    (the XLA lowering round-trips shift fusions through HBM -- same
-    pattern as the splat hole-fill kernel, tools/bench_pallas_stencil);
-    CPU and oversize images fall back to plain XLA.
-    """
-    h, w = depth.shape
-    if jax.default_backend() != "tpu" or h * w * 4 > 8 * 1024 * 1024:
-        return _bilateral_math(depth, config)
-    return _bilateral_pallas(depth, config)
-
-
-def _bilateral_pallas(depth: jax.Array, config: Config, interpret=False):
-    """The VMEM-resident Pallas lowering of ``_bilateral_math``.
-    ``interpret=True`` runs the kernel body in the Pallas interpreter so
-    CPU tests exercise the same code the TPU compiles."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = depth.shape
-
-    def kernel(d_ref, out_ref):
-        out_ref[:] = _bilateral_math(d_ref[:], config)
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((h, w), depth.dtype),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(depth)
 
 
 def compute_vertex_map(depth: jax.Array, camera: PinholeCamera) -> jax.Array:

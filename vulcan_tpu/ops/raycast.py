@@ -1,6 +1,6 @@
 """Sparse raycast through the voxel-block hash.
 
-TPU-native rebuild of the reference's ``Tracer`` (SURVEY.md component #16,
+JAX rebuild of the reference's ``Tracer`` (SURVEY.md component #16,
 ``tracer.cu`` [M]; per-pixel ray march with block skipping, sign-change
 detection and trilinear refinement [P:1410.0925] [B]).  Structure:
 
@@ -12,11 +12,11 @@ detection and trilinear refinement [P:1410.0925] [B]).  Structure:
   2. **Batched march**: the per-frame ``render_cache`` (dense block grid +
      haloed visible blocks) makes each sample two dense gathers -- no hash
      probing anywhere (the CUDA reference pays a bucket walk per step).
-     Instead of a per-step adaptive walk (latency-bound on TPU: every
-     gather would wait on the previous step), each round samples
+     Instead of a per-step adaptive walk (latency-bound: every gather
+     would wait on the previous step), each round samples
      ``raycast_chunk`` data-INDEPENDENT positions across the per-ray range
      interval at once and scans for the first sign change -- the
-     TPU-native answer to march divergence (SURVEY.md §7 hard part #1).
+     vectorized answer to march divergence (SURVEY.md §7 hard part #1).
   3. **Secant refinement** on trilinear samples, then world-space
      vertex/normal/color maps.  Normals come from the image-space cross
      product of the vertex map (KinectFusion-style) -- one pass, no extra
@@ -42,9 +42,9 @@ class Render:
 
     Vertex/normal channels are stored PLANAR ((H, W) each): both
     renderers compute them planar, the tracker consumes them planar,
-    and stacking into (H, W, 3) costs ~1 ms of strided T(4,128)-layout
-    DMA per array per frame on this TPU (xplane trace).  The stacked
-    views remain available as properties for API/offline consumers."""
+    and stacking into (H, W, 3) would add a strided copy per array per
+    frame.  The stacked views remain available as properties for
+    API/offline consumers."""
 
     depth: jax.Array          # (H, W) z-depth, 0 invalid
     vx: jax.Array             # (H, W) world vertex channels
@@ -282,8 +282,8 @@ def _march(
 
     def compact_phase(carry):
         t_cur, last_m, t_hit, t_before, m_b, m_h, done = carry
-        # First-M undone rays via cumsum + scatter (a top_k here lowered
-        # to a full sort over n rays, ~10 ms at 640x480 -- round-5 trace).
+        # First-M undone rays via cumsum + scatter (a top_k here lowers
+        # to a full sort over n rays).
         undone = ~done.reshape(-1)
         order = jnp.cumsum(undone.astype(jnp.int32)) - 1
         ids = jnp.full((M,), n, jnp.int32)
@@ -378,8 +378,8 @@ def raycast(
 ) -> Render:
     """Render model depth/vertex/normal/color maps from the sparse TSDF.
 
-    Hierarchical march under a strict random-access budget (~100M
-    gathers/s on this TPU, see render_cache.py):
+    Hierarchical march under a strict random-access budget (see
+    render_cache.py):
 
       1. coarse march at 1/``raycast_coarse`` resolution over the per-ray
          range interval (first-block band from the range image);
@@ -414,10 +414,8 @@ def raycast(
     k = config.raycast_coarse
 
     # --- coarse march at 1/k resolution ------------------------------------
-    from .preprocess import subsample_stride as _ss
-
-    cdx, cdy, cdz = _ss(dx_, k), _ss(dy_, k), _ss(dz_, k)
-    c_inv = _ss(inv_dir_norm, k)
+    cdx, cdy, cdz = dx_[::k, ::k], dy_[::k, ::k], dz_[::k, ::k]
+    c_inv = inv_dir_norm[::k, ::k]
     c_tmin = _minpool(t_min, k)
     c_tfmax = _maxpool(jnp.where(has_range, t_fmax, -jnp.inf), k)
     c_tmax = _maxpool(jnp.where(has_range, t_max, -jnp.inf), k)

@@ -1,10 +1,9 @@
 """Per-frame raycast acceleration structure.
 
 The CUDA reference's raycast does a hash lookup (bucket walk) per march
-step and per trilinear corner [P:1410.0925].  On this TPU, XLA lowers every
-random access to ~7 cycles/element (measured ~130M gathers/s,
-tools/bench_gather_traced.py), so the renderer is designed around a strict
-random-access budget:
+step and per trilinear corner [P:1410.0925].  Here every random access is
+an XLA gather, so the renderer is designed around a strict random-access
+budget:
 
   * **halo arrays** (max_visible+1, 9, 9, 9): every visible block plus one
     voxel of +x/+y/+z neighbor data, so trilinear interpolation never
@@ -23,7 +22,7 @@ Visible blocks outside the G^3 window (G * block_extent meters, default
 frame -- never silent.
 
 All sampling entry points take per-axis coordinate arrays: (...,3) vectors
-in hot loops force costly minor-dim-3 relayout copies on TPU.
+in hot loops force minor-dim-3 relayout copies.
 """
 from __future__ import annotations
 

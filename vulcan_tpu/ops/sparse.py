@@ -1,17 +1,16 @@
 """Visible-block sparse TSDF integration.
 
-TPU-native rebuild of the reference's ``Integrator`` on the hashed volume
+JAX rebuild of the reference's ``Integrator`` on the hashed volume
 (SURVEY.md component #15, ``integrator.cu`` [M]; one CUDA thread per voxel of
 each visible block [P:1410.0925] [B]).  Here: one vectorized XLA pass over
 the fixed-capacity visible-block batch, shaped (chunk, 512) --
-gather block rows, update, scatter back (rows are contiguous 2KB DMAs,
-not per-element scatters).
+gather block rows, update, scatter back (rows are contiguous 2 KB
+copies, not per-element scatters).
 
 The pass is chunked (``integrate_chunk`` blocks per while_loop round) and
 the loop trip count follows the ACTUAL ``num_visible``: with a static
 (max_visible, 512) batch, scenes using a fraction of the capacity would
-pay full-capacity depth-image sampling every frame (the per-element image
-gathers run at ~130M/s on this TPU -- see render_cache.py).
+pay full-capacity depth-image sampling every frame.
 """
 from __future__ import annotations
 
@@ -30,10 +29,9 @@ def _pack_depth_color(depth, color, config: Config) -> jax.Array:
     """(H, W) f32 depth + (H, W, 3) f32 rgb -> (H, W) int32
     ``depth16 << 16 | rgb565``.
 
-    Integration then needs ONE random image gather per voxel (the
-    per-element gathers run at ~130M elem/s regardless of dtype --
-    PERFORMANCE.md cost model -- so halving the gather count halves the
-    dominant integrate cost).  Depth is quantized to the sensor's own
+    Integration then needs ONE random image gather per voxel instead
+    of two (random gathers are the dominant integrate cost).  Depth is
+    quantized to the sensor's own
     raw grid (1/depth_raw_scale = 0.2 mm at TUM scale, exactly what a
     uint16 camera feed provides); color to RGB565 (<=1.6% per channel,
     averaged further by the running color weight)."""
@@ -58,26 +56,22 @@ def _unpack_depth_color(packed: jax.Array, config: Config):
 
 
 # ---------------------------------------------------------------------------
-# One-hot MXU patch gather (the TPU path)
+# One-hot matmul patch gather (Config.integrate_gather="onehot")
 # ---------------------------------------------------------------------------
 #
-# Measured on the v5e (tools/bench_patch_gather.py): flat per-element
-# image gathers run at ~142M lanes/s -- integrate's 1.6M lanes cost
-# ~11 ms/frame and were the stage's floor.  But one block's 512 voxels
-# project into a COMPACT image patch, and a gather from a small
-# per-block table can run on the MXU instead: build a (512, P) one-hot
-# of patch-local pixel indices and matmul it with the patch values --
-# XLA fuses the one-hot generation into the matmul, so nothing huge
-# materializes and the same 1.6M lanes cost ~1.4 ms (8x).  Multiple
-# value channels ride the SAME one-hot as extra rhs columns for free.
+# One block's 512 voxels project into a COMPACT image patch, so a gather
+# from a small per-block table can run as a matmul instead of per-element
+# gathers: build a (512, P) one-hot of patch-local pixel indices and
+# matmul it with the patch values.  Multiple value channels ride the SAME
+# one-hot as extra rhs columns.  (The flat per-element gather is the
+# default: see resolve_integrate_gather.)
 #
 # The patch for a block is selected from a per-block MIP level so its
 # projection always fits 32 x 64 patch pixels: stride 2^L keeps the
 # sampling step at most ~1/4 of a voxel's projected footprint, so mip
 # sampling stays sub-voxel accurate at every depth.  Patches are
 # extracted as plain row gathers from statically tiled (rows, 32) mip
-# images (contiguous 128-byte DMAs; lax.gather with dynamic slices
-# compiles pathologically and was abandoned -- see the bench tool).
+# images (contiguous 128-byte rows).
 
 _MIP_LEVELS = 5           # strides 1, 2, 4, 8, 16
 _TILE_W = 32              # lane-width tiles of every mip row
@@ -107,8 +101,6 @@ def _build_mip_tiles(packed: jax.Array):
     sample, no averaging of packed values), zero-padded to the tile
     grid; packed 0 decodes to depth 0 = invalid, so padding is inert.
     """
-    from .preprocess import subsample_stride
-
     h, w = packed.shape
     meta, total = _mip_meta(h, w)
     parts = []
@@ -117,14 +109,15 @@ def _build_mip_tiles(packed: jax.Array):
         # Iterative halving: [::2] of level L-1 == [::2^L] of level 0
         # exactly (nearest subsample composes), and the shrinking
         # inputs cost ~1.33x one full-size pass instead of L of them.
-        m_prev = subsample_stride(m_prev, 2 if level else 1)
+        if level:
+            m_prev = m_prev[::2, ::2]
         m = jnp.pad(m_prev, ((0, hp - hl), (0, wt * _TILE_W - wl)))
         parts.append(m.reshape(hp * wt, _TILE_W))
     return jnp.concatenate(parts, axis=0), meta
 
 
 def _patch_gather_depth_color(uv, z_cam, mip_tiles, mip_meta, config):
-    """Per-block patched image sampling via one-hot MXU matmuls.
+    """Per-block patched image sampling via one-hot matmuls.
 
     uv: (C, 512, 2) full-res pixel coords of every voxel; returns
     (depth (C,512), color (C,512,3), sampled_ok (C,512)).
@@ -187,15 +180,11 @@ def _patch_gather_depth_color(uv, z_cam, mip_tiles, mip_meta, config):
     )
     pidx = jnp.where(inpatch, pv * (_PATCH_TILES * _TILE_W) + pu, -1)
 
-    # One one-hot, four 8-BIT value columns.  Integer payloads wider
-    # than 8 bits cannot ride the MXU's fast path: the TPU default runs
-    # f32 dots as single bf16 passes (8-bit significand), silently
-    # truncating them, and Precision.HIGHEST (exact, 6 passes) measured
-    # ~7 ms/frame here (round-3 trace, fusion.2133).  Byte-sliced
-    # columns are exact in bf16 -- every product is 0/1 x (<= 255) and
-    # each (block, voxel) row hits exactly one patch index -- so the
-    # single-pass bf16 MXU path gives the same bits ~6x faster.
-    # P-minor rhs + NT-form dot (contract the rhs's minor dim): avoids
+    # One one-hot, four 8-BIT value columns.  bf16 has an 8-bit
+    # significand, so wider integer payloads would be truncated;
+    # byte-sliced columns are exact in bf16 -- every product is
+    # 0/1 x (<= 255), each (block, voxel) row hits exactly one patch
+    # index, and the sum accumulates in f32.  P-minor rhs + NT-form dot (contract the rhs's minor dim): avoids
     # materializing a byte-minor (C, P, 4) layout -- see the same
     # restructure in ops/icp.py _PatchAssoc.freeze_windows.
     rhs = jnp.stack(
@@ -223,11 +212,19 @@ def _patch_gather_depth_color(uv, z_cam, mip_tiles, mip_meta, config):
     return depth, jnp.stack([r, g, b], axis=-1), inpatch
 
 
+def resolve_integrate_gather(config: Config) -> str:
+    """``Config.integrate_gather`` with ``"auto"`` resolved to one fixed
+    choice on every backend: the flat per-element gather, which the
+    GPU measurement in PERF.md prefers to the one-hot patch path."""
+    mode = config.integrate_gather
+    return "flat" if mode == "auto" else mode
+
+
 def _integrate_batch(volume, frame, packed_img, ids, row_valid, config):
     """Fuse one chunk of blocks; returns updated voxel arrays (C, 512).
 
     ``packed_img`` is either the flat (H, W) packed image (flat-gather
-    path) or the (mip_tiles, mip_meta) pair (one-hot MXU path).
+    path) or the (mip_tiles, mip_meta) pair (one-hot matmul path).
     """
     bs = config.block_size
     vs = config.voxel_size
@@ -326,10 +323,7 @@ def integrate_sparse(
     n_chunks_needed = (work_count + C - 1) // C
     nb = volume.tsdf.shape[0]
     packed_dc = _pack_depth_color(frame.depth, frame.color, config)
-    mode = config.integrate_gather
-    if mode == "auto":
-        mode = "onehot" if jax.default_backend() == "tpu" else "flat"
-    if mode == "onehot":
+    if resolve_integrate_gather(config) == "onehot":
         packed_dc = _build_mip_tiles(packed_dc)
 
     # surf_overflow is a per-frame GAUGE (how many surfels this frame's

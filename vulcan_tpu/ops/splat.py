@@ -1,8 +1,7 @@
 """Surfel-splatting renderer: the scatter-based alternative to ray marching.
 
-Motivation (PERFORMANCE.md): per-pixel volume sampling costs ~20M random
-gathers per 640x480 frame against a ~120M/s platform rate.  Splatting
-inverts the loop -- iterate over the VOLUME's surface, not over pixels:
+Motivation: per-pixel volume sampling costs ~20M random gathers per
+640x480 frame.  Splatting inverts the loop -- iterate over the VOLUME's surface, not over pixels:
 
   1. **Surface-block compaction**: only blocks holding voxels near the
      zero crossing can emit surfels; the visible list is filtered to them
@@ -15,8 +14,8 @@ inverts the loop -- iterate over the VOLUME's surface, not over pixels:
      hash lookups per block) -- no render-cache halos are built at all.
   3. **Splat**: project every candidate voxel-edge crossing and
      scatter-min its camera depth into the z-buffer, masked (no compaction
-     pass: masked scatters run ~300M/s here, cheaper than any sort-based
-     surfel selection, and nothing is ever dropped).  Back-facing
+     pass: a masked scatter is cheaper than any sort-based surfel
+     selection, and nothing is ever dropped).  Back-facing
      crossings are culled by their axis-aligned normal sign.
   4. **Hole fill**: surfels are ~1 px apart at range; small holes close
      with valid-neighbor-min dilation rounds (dense shifts), gated on
@@ -40,6 +39,7 @@ from ..core.camera import PinholeCamera
 from ..core.se3 import SE3
 from . import blocks as B
 from . import render_cache as RC
+from .preprocess import _shift2d
 from .raycast import Render, _cross_normals_axes
 
 
@@ -91,6 +91,28 @@ def _surfel_block_list(volume: B.VolumeState, config: Config):
     return compact_mask(has_surf, ids, V, jnp.int32(0)), n_surf
 
 
+def select_voxel_rgb(colorpack_rows, lidx):
+    """Per-surfel voxel color bytes: ``(C, 512)`` colorpack rows and
+    ``(C, S)`` voxel indices -> ``(C, S, 3)`` int32 r, g, b.
+
+    A one-hot byte-column matmul: every product is 0/1 times a byte, each
+    row has exactly one hit, and the sum accumulates in f32, so the
+    result equals ``take_along_axis`` bit for bit (checked at full size
+    by ``chip_smoke.py`` on the GPU and at small size by the CPU tests).
+    """
+    cp = colorpack_rows
+    rhs = jnp.stack(
+        [(cp >> 16) & 0xFF, (cp >> 8) & 0xFF, cp & 0xFF], axis=-1
+    ).astype(jnp.bfloat16)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (1, 1, cp.shape[1]), 2)
+    onehot = (lidx[:, :, None] == iota).astype(jnp.bfloat16)
+    return jax.lax.dot_general(
+        onehot, rhs,
+        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.float32,
+    ).astype(jnp.int32)
+
+
 _ZQ_BITS = 19                       # packed-luma depth quantization bits
 _ZQ_MAX = (1 << _ZQ_BITS) - 1       # depth step = ray_far / _ZQ_MAX
                                     # (9.5 um at the 5 m default -- below
@@ -131,8 +153,8 @@ def _splat_zbuf_surfels(
     Identical projective-TSDF surfel model to ``_splat_zbuf_direct``
     (z_surf = z_voxel + tsdf * mu on the voxel's own ray), but the
     scatter runs over the COMPACTED surfel rows maintained by
-    integration: ~4x fewer scatter lanes at the measured ~140M lanes/s,
-    and no per-frame dense row pass to find them.
+    integration: ~4x fewer scatter lanes, and no per-frame dense row
+    pass to find them.
 
     ``with_color=True`` adds a SECOND pass over the same surfels that
     scatters each winner's voxel color (rgb888) wherever its depth
@@ -187,9 +209,8 @@ def _splat_zbuf_surfels(
                 (start + jnp.arange(C, dtype=jnp.int32)) < n_list
             ) & (ids > 0)
             # Batched row gather THEN static slice: the fancy-index
-            # form surfpack[ids, lo:hi] lowered to one dynamic-slice
-            # per row (4096/frame, ~4 ms -- round-3 trace); take() is
-            # a single contiguous-row DMA gather.
+            # form surfpack[ids, lo:hi] lowers to one dynamic-slice per
+            # row; take() is a single contiguous-row gather.
             rows = jnp.take(volume.surfpack, ids, axis=0)[:, s_lo:s_hi]
             lidx, t, valid, (gx, gy, gz) = B.unpack_surfels(rows)
             valid = valid & rv[:, None]
@@ -244,23 +265,8 @@ def _splat_zbuf_surfels(
                 )
                 return i + 1, buf
 
-            # Voxel rgb888 selected within the gathered colorpack rows
-            # by one-hot byte-column matmul (exact on the bf16 MXU
-            # path).
             cp = jnp.take(volume.colorpack, ids, axis=0)     # (C, 512)
-            rhs = jnp.stack(
-                [(cp >> 16) & 0xFF, (cp >> 8) & 0xFF, cp & 0xFF],
-                axis=-1,
-            ).astype(jnp.bfloat16)
-            iota = jax.lax.broadcasted_iota(
-                jnp.int32, (1, 1, cp.shape[1]), 2
-            )
-            onehot = (lidx[:, :, None] == iota).astype(jnp.bfloat16)
-            rgb = jax.lax.dot_general(
-                onehot, rhs,
-                dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.int32)                              # (C, s, 3)
+            rgb = select_voxel_rgb(cp, lidx)                 # (C, s, 3)
 
             if luma:
                 # Single-pass packed z+intensity scatter (see docstring).
@@ -418,11 +424,10 @@ def _splat_zbuf_direct(
         v = jnp.round(camera.fy * cy / zc + camera.cy).astype(jnp.int32)
         inb = (u >= 0) & (u < width) & (v >= 0) & (v < height) & zok
         pix = jnp.where(inb, v * width + u, height * width)
-        # One masked scatter-min per chunk.  (Pre-compacting the ~15% live
+        # One masked scatter-min per chunk (pre-compacting the ~15% live
         # surfels with a cumsum pack before the scatter was tried and
-        # REVERTED: in situ it ran ~2 ms/frame SLOWER than the straight
-        # masked scatter, despite microbenchmarks showing monotonic
-        # packing scatters as nearly free.)
+        # reverted: it ran slower in situ than the straight masked
+        # scatter).
         zbuf = zbuf.at[pix.reshape(-1)].min(
             jnp.where(inb, z_surf, jnp.inf).reshape(-1), mode="drop"
         )
@@ -539,25 +544,10 @@ def _splat_zbuf_cached(
     return zbuf
 
 
-def _shift_inf(d, dy, dx):
-    """Static +-1 shift with inf fill via concatenate (Pallas-safe: no
-    pad+dynamic-slice, which the TPU kernel lowering rejects)."""
-    h, w = d.shape
-    inf = jnp.inf
-    if dy == 1:
-        d = jnp.concatenate([d[1:], jnp.full((1, w), inf, d.dtype)], 0)
-    elif dy == -1:
-        d = jnp.concatenate([jnp.full((1, w), inf, d.dtype), d[:-1]], 0)
-    if dx == 1:
-        d = jnp.concatenate([d[:, 1:], jnp.full((h, 1), inf, d.dtype)], 1)
-    elif dx == -1:
-        d = jnp.concatenate([jnp.full((h, 1), inf, d.dtype), d[:, :-1]], 1)
-    return d
-
-
-def _fill_smooth_math(d, config: Config):
-    """Hole fill + edge-aware smoothing, pure jnp (shared by the XLA path
-    and the Pallas kernel body).  ``d``: depth with +inf for invalid.
+def _fill_and_smooth(d, config: Config):
+    """Hole fill + edge-aware smoothing of the splatted depth.  ``d``:
+    depth with +inf for invalid.  Static 3x3 shifts that XLA fuses into
+    elementwise loops.
 
     Fill only where the 3x3 neighborhood agrees on one surface (filling
     across a silhouette would bleed depth); then average valid neighbors
@@ -572,7 +562,7 @@ def _fill_smooth_math(d, config: Config):
             for dx in (-1, 0, 1):
                 if dx == 0 and dy == 0:
                     continue
-                n_d = _shift_inf(d, dy, dx)
+                n_d = _shift2d(d, dy, dx, fill=jnp.inf)
                 best = jnp.minimum(best, n_d)
                 worst = jnp.maximum(
                     worst, jnp.where(jnp.isfinite(n_d), n_d, -jnp.inf)
@@ -585,43 +575,11 @@ def _fill_smooth_math(d, config: Config):
         for dx in (-1, 0, 1):
             if dx == 0 and dy == 0:
                 continue
-            n_d = _shift_inf(d, dy, dx)
+            n_d = _shift2d(d, dy, dx, fill=jnp.inf)
             ok = jnp.isfinite(n_d) & (jnp.abs(n_d - d) < 0.5 * mu)
             acc = acc + jnp.where(ok, n_d, 0.0)
             cnt = cnt + ok
     return jnp.where(jnp.isfinite(d), acc / jnp.maximum(cnt, 1.0), d)
-
-
-def _fill_and_smooth(d, config: Config):
-    """Dispatch the post-splat image passes: one VMEM-resident Pallas
-    stencil kernel on TPU (measured 2.1x over the XLA lowering, which
-    round-trips HBM between shift fusions -- tools/bench_pallas_stencil),
-    plain XLA on CPU (tests) or when the image exceeds VMEM."""
-    h, w = d.shape
-    if jax.default_backend() != "tpu" or h * w * 4 > 8 * 1024 * 1024:
-        return _fill_smooth_math(d, config)
-    return _fill_smooth_pallas(d, config)
-
-
-def _fill_smooth_pallas(d, config: Config, interpret=False):
-    """The VMEM-resident Pallas lowering of ``_fill_smooth_math``.
-    ``interpret=True`` runs the kernel body in the Pallas interpreter so
-    CPU tests exercise the same code the TPU compiles."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = d.shape
-
-    def kernel(d_ref, out_ref):
-        out_ref[:] = _fill_smooth_math(d_ref[:], config)
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((h, w), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(d)
 
 
 def render_splat(
@@ -690,8 +648,6 @@ def render_splat(
         )
     depth = zbuf.reshape(height, width)
     has = jnp.isfinite(depth)
-
-    from .preprocess import _shift2d
 
     d = _fill_and_smooth(jnp.where(has, depth, jnp.inf), config)
     depth = jnp.where(jnp.isfinite(d), d, 0.0)

@@ -1,9 +1,8 @@
 """Multi-chip execution over a jax.sharding.Mesh.
 
 The CUDA reference is strictly single-GPU (SURVEY.md §3: no NCCL/MPI; [B]
-targets one chip), so multi-chip is an *extension*, designed the TPU way
-(scaling-book recipe: pick a mesh, annotate shardings, let XLA insert the
-collectives over ICI):
+targets one GPU), so multi-device is an *extension* (pick a mesh,
+annotate shardings, let XLA insert the collectives):
 
   * **Images are sharded by rows** over the ``pix`` axis: preprocessing,
     ICP residual rows, and the per-pixel raycast march are embarrassingly
@@ -11,19 +10,16 @@ collectives over ICI):
     (bilateral window, normal cross products, pyramid pooling) and a psum
     for the ICP 6x6 reduction -- exactly the collectives a hand-written
     multi-GPU KinectFusion would issue.
-  * **The volume is replicated.**  The REASONED trade (unmeasured on real
-    multi-chip hardware -- none exists in this environment): replicating
-    per-block integration duplicates work that is a modest share of the
-    frame, while keeping the renderer's random-access volume gathers
-    chip-local; a block-sharded volume would turn every sample into an
-    all-gather over ICI.  The only measurement possible here
-    (tools/bench_multichip.py, 8 virtual devices on ONE physical CPU
-    core) shows the sharded program executing correctly but ~7x slower
-    end-to-end than single-device -- that number characterizes
-    virtual-device emulation overhead, not ICI scaling, and no scaling
-    claim is made beyond "compiles and runs with the intended shardings".
+  * **The volume is replicated.**  The reasoned trade (not measured on
+    several cards): replicating per-block integration duplicates work
+    that is a modest share of the frame, while keeping the renderer's
+    random-access volume gathers device-local; a block-sharded volume
+    would turn every sample into a cross-device gather.  What is
+    validated is the 8-virtual-CPU-device run (tests/test_parallel.py,
+    tools/bench_multichip.py): the sharded program compiles and runs with
+    the intended shardings; no scaling claim is made.
   * The pose update is a pure function of the psum'd 6x6 system, so every
-    chip computes the identical pose -- no broadcast needed.
+    device computes the identical pose -- no broadcast needed.
 
 ``make_sharded_step`` returns a jitted step with these shardings bound;
 ``dryrun`` (used by __graft_entry__.dryrun_multichip) runs one tiny frame

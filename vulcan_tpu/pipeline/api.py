@@ -4,7 +4,7 @@ Extractor (+ the online Pipeline driver).
 BASELINE.json names these five classes verbatim as the API surface to match
 (SURVEY.md §1).  They are thin object wrappers over the pure-functional ops
 (all real state is pytrees; every method is jit-backed), so users of the
-CUDA reference find the same vocabulary while the TPU-native core stays
+CUDA reference find the same vocabulary while the JAX core stays
 functional.
 """
 from __future__ import annotations
@@ -239,7 +239,7 @@ class Tracker:
     ``ColorTracker``/``LightTracker``, components #17 and #20).
     ``mode``: depth | color | combined | light.
 
-    ``light`` is the TPU-native rebuild of the reference's recalled
+    ``light`` is the JAX rebuild of the reference's recalled
     ``LightTracker`` (photometric tracking under a shading model,
     SURVEY.md component #20 [M] -- unverifiable against the empty
     reference mount, so the light model is redesigned rather than

@@ -2,7 +2,7 @@
 
 All framework state (frames, poses, volumes) is a pytree of jnp arrays so that
 the whole per-frame pipeline can be a single jitted, donated function.  This is
-the TPU-native replacement for the reference's device-buffer classes
+the JAX replacement for the reference's device-buffer classes
 (Vulcan ``Buffer<T>`` / ``Image`` RAII wrappers -- see SURVEY.md L0/L1): XLA
 owns memory, we only describe structure.
 """
